@@ -13,8 +13,9 @@ Two modes:
   quantity that maps to real-pod scaling efficiency: efficiency ≈
   1 / (1 + overhead).
 
-- ``--mode weak`` (for a real pod slice): constant per-device work,
-  efficiency = throughput(n) / (n · throughput(1)).
+- ``--mode weak`` (for real devices, e.g. four GPUs of one host):
+  constant per-device work, efficiency = throughput(n) / (n ·
+  throughput(1)).
 
 - ``--mode pp``: measures the pipeline-parallel executor's *actual*
   overlap — sleep-weighted stages on distinct devices, pipelined vs
@@ -124,7 +125,7 @@ def _measure_spmd_pipeline(devices, num_stages, num_batches, delay_s):
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--platform", default="cpu", choices=("cpu", "tpu"))
+    parser.add_argument("--platform", default="cpu", choices=("cpu", "cuda"))
     parser.add_argument("--mode", default="overhead",
                         choices=("overhead", "weak", "pp"))
     parser.add_argument("--devices", type=int, default=8)
@@ -145,6 +146,11 @@ def main() -> int:
     import jax
 
     jax.config.update("jax_platforms", args.platform)
+    from warmup_fir_filter_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     import numpy as np
 
     from warmup_fir_filter_tpu.models.filters import FILTER_BANK_5TAP

@@ -1,14 +1,9 @@
-"""Tap-count sweep of the bit-exact fixed FIR dispatch (one JSON line).
+"""Tap-count sweep of the bit-exact fixed FIR (one JSON line).
 
-VERDICT r3 item 5: the windowed any-L MXU kernel family
-(``kernels/fir_mxu.py::fir1d_fixed_rows_mxu_window``) was fuzz-tested
-but its throughput lived only in docstrings; this runner puts every
-number ``kernels/dispatch.py`` claims into a recorded artifact.
-
-For each L in the sweep: bit-exactness vs the numpy golden oracle is a
-HARD GATE (a non-bit-exact backend records 0), then sustained Msps via
-the chained-slope harness on the headline-scale workload (~160 MB).
-Emits ONE JSON line::
+For each L in the sweep: bit-exactness of ``ops/fir1d.py``'s fixed path
+vs the numpy golden oracle is a hard gate (a mismatch ends the run with
+a non-zero status), then sustained Msps via the chained-slope harness on
+the headline-scale workload (~160 MB).  Emits ONE JSON line::
 
     {"metric": "fixed_fir_tap_sweep", "value": <63-tap Msps>, ...,
      "per_taps": {"5": ..., "63": ..., "257": ..., "1001": ..., "4096": ...}}
@@ -27,6 +22,8 @@ if _REPO_ROOT not in sys.path:
 
 import numpy as np
 
+from warmup_fir_filter_tpu.utils.compile_cache import enable_compile_cache
+
 TAP_SWEEP = (5, 63, 257, 1001, 4096)
 BATCH, WIDTH = 19456, 8192  # headline-scale stream, ~159.4 Msamples
 
@@ -34,12 +31,13 @@ BATCH, WIDTH = 19456, 8192  # headline-scale stream, ~159.4 Msamples
 def main() -> int:
     start = time.perf_counter()
     quick = "--quick" in sys.argv
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp
 
-    from warmup_fir_filter_tpu.kernels.dispatch import fir1d_fixed_rows_auto
     from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
+    from warmup_fir_filter_tpu.ops.fir1d import fir1d_fixed_rows_jnp
     from warmup_fir_filter_tpu.ops.resample import design_lowpass
     from warmup_fir_filter_tpu.utils.benchmarking import chained_throughput
 
@@ -50,43 +48,26 @@ def main() -> int:
     check = x[:16]
 
     per_taps: dict[str, float] = {}
-    details: dict[str, dict] = {}
     for taps in TAP_SWEEP:
         h = design_lowpass(taps, 0.25)
-        entry: dict = {}
-        try:
-            golden = fir1d_fixed_golden_rows(check, h)
-            got = np.asarray(fir1d_fixed_rows_auto(jnp.asarray(check), h))
-            if not np.array_equal(got, golden):
-                raise AssertionError("not bit-exact vs golden")
-            entry["bit_exact"] = True
-            # Same chain lengths as bench.py.  (Note: the 5-tap row
-            # reads ~245-255 Gsps vs bench.py's ~315-335 because the
-            # sweep uses a design_lowpass filter whose quantized taps
-            # need more signed-base-256 digit planes than the
-            # headline's 'sharpen' bank entry — more dots per tile,
-            # same kernel; both are bit-exact-gated.)
-            r = chained_throughput(
-                lambda a, hh=h: fir1d_fixed_rows_auto(a, hh), x_dev,
-                chain_short=8, chain_long=104, repeats=3)
-            msps = x.size / r["seconds_per_apply"] / 1e6
-            per_taps[str(taps)] = round(msps, 1)
-            entry["msps"] = round(msps, 1)
-        except Exception as exc:  # noqa: BLE001 — record, keep sweeping
-            per_taps[str(taps)] = 0.0
-            entry["error"] = str(exc)[:300]
-        details[str(taps)] = entry
+        got = np.asarray(fir1d_fixed_rows_jnp(jnp.asarray(check), h))
+        if not np.array_equal(got, fir1d_fixed_golden_rows(check, h)):
+            raise AssertionError(f"{taps} taps: not bit-exact vs golden")
+        r = chained_throughput(
+            lambda a, hh=h: fir1d_fixed_rows_jnp(a, hh), x_dev,
+            chain_short=8, chain_long=104, repeats=3)
+        per_taps[str(taps)] = x.size / r["seconds_per_apply"] / 1e6
 
+    d = jax.devices()[0]
     print(json.dumps({
         "metric": "fixed_fir_tap_sweep",
-        "value": per_taps.get("63", 0.0),
-        "unit": "Msamples/s/chip at 63 taps (bit-exact gated)",
-        "vs_baseline": round(per_taps.get("63", 0.0) / 0.57, 1),
+        "value": per_taps["63"],
+        "unit": "Msamples/s/device at 63 taps (bit-exact gated)",
         "per_taps_msps": per_taps,
-        "details": details,
         "workload": f"Q4.12 fixed FIR over {batch}x{width} uint8",
-        "backend": jax.default_backend(),
-        "elapsed_s": round(time.perf_counter() - start, 1),
+        "device": {"platform": d.platform, "kind": d.device_kind,
+                   "count": len(jax.devices())},
+        "elapsed_s": time.perf_counter() - start,
     }))
     sys.stdout.flush()
     return 0

@@ -149,11 +149,11 @@ class TestComparisonDoc:
 
 class TestProfiling:
     def test_stage_timer_line(self, capsys):
-        with StageTimer("unit_stage", sol_msps=100.0) as timer:
+        with StageTimer("unit_stage", generated=2) as timer:
             timer.add_samples(50_000)
         out = capsys.readouterr().out
-        assert "[OK] unit_stage samples=50000" in out
-        assert "sol_fraction=" in out
+        assert "[OK] unit_stage generated=2 samples=50000" in out
+        assert "msps=" in out
         assert timer.msps > 0
 
     def test_trace_noop_when_disabled(self, tmp_path):

@@ -7,6 +7,7 @@ import pytest
 from warmup_fir_filter_tpu.models.chain import (
     ChainConfig,
     chain_forward,
+    chain_forward_golden,
     chain_forward_sharded,
 )
 from warmup_fir_filter_tpu.ops.demod import (
@@ -78,25 +79,6 @@ class TestChain:
         sharded = np.asarray(chain_forward_sharded(re, im, config, mesh=mesh))
         np.testing.assert_allclose(sharded, single, atol=1e-5)
 
-    def test_sharded_fused_backend_matches_single_device(
-            self, rng, require_devices):
-        """r4: the fused chain kernel under shard_map — each device runs
-        the single-pass kernel on its local rows (8 channels/device
-        here) and must equal the forced-fused single-device run."""
-        import dataclasses
-
-        mesh = make_mesh({"data": 2}, devices=require_devices(2))
-        config = dataclasses.replace(ChainConfig(),
-                                     channelizer_backend="fused")
-        message = rng.uniform(-1, 1, size=(16, 2000))
-        re, im = fm_modulate(message, config.demod_k_f)
-        single = np.asarray(chain_forward(
-            jax.numpy.asarray(re, jax.numpy.float32),
-            jax.numpy.asarray(im, jax.numpy.float32), config))
-        sharded = np.asarray(chain_forward_sharded(re, im, config,
-                                                   mesh=mesh))
-        np.testing.assert_array_equal(sharded, single)
-
     def test_indivisible_channels_rejected(self, rng, require_devices):
         mesh = make_mesh({"data": 4}, devices=require_devices(4))
         with pytest.raises(ValueError, match="divisible"):
@@ -104,143 +86,40 @@ class TestChain:
                                   mesh=mesh)
 
 
-def test_chain_pallas_channelizer_matches_jnp(rng):
-    from warmup_fir_filter_tpu.models.chain import ChainConfig, chain_forward
-
-    t = np.arange(30_000)
-    re = np.stack([np.cos(2 * np.pi * 0.01 * t), np.sin(2 * np.pi * 0.007 * t)])
-    im = np.stack([np.sin(2 * np.pi * 0.01 * t), np.cos(2 * np.pi * 0.007 * t)])
-    ref = np.asarray(
-        chain_forward(re, im, ChainConfig(channelizer_backend="jnp")),
-        np.float64,
-    )
-    got = np.asarray(
-        chain_forward(re, im, ChainConfig(channelizer_backend="pallas")),
-        np.float64,
-    )
-    np.testing.assert_allclose(got, ref, atol=2e-4)
 
 
-def test_chain_unknown_channelizer_backend_rejected(rng):
-    import pytest as _pytest
+@pytest.mark.parametrize("up,down,rs_taps,ch_taps,channels", [
+    (2, 3, 63, 63, 8),      # flagship geometry
+    (4, 3, 47, 31, 8),      # larger upsample, shorter filters
+    (2, 1, 33, 97, 8),      # pure upsample, long channelizer
+    (8, 5, 63, 129, 16),    # deep polyphase, long channelizer
+    (1, 2, 31, 63, 8),      # pure decimation
+    (2, 3, 95, 63, 24),     # longer resampler branches, 24 channels
+])
+@pytest.mark.parametrize("use_fft", [True, False])
+def test_chain_config_sweep_matches_golden(rng, up, down, rs_taps, ch_taps,
+                                           channels, use_fft):
+    """Every (up, down, taps, channels) geometry, with either channelizer,
+    against the float64 composition of the three stages."""
+    import dataclasses
 
-    from warmup_fir_filter_tpu.models.chain import ChainConfig, chain_forward
+    from warmup_fir_filter_tpu.ops.fftfilt import snr_db
 
-    with _pytest.raises(ValueError, match="channelizer_backend"):
-        chain_forward(
-            np.zeros((1, 4000), np.float32),
-            np.zeros((1, 4000), np.float32),
-            ChainConfig(channelizer_backend="cuda"),
-        )
-
-
-class TestTimeShardedFusedChain:
-    """r5: the fused chain sharded along TIME (models/chain.py,
-    chain_forward_time_sharded) must be BIT-identical to the
-    single-device fused run — including at both stream edges, where the
-    kernel's dynamic resampled-space window (rs_bounds) places the
-    zero-pad exactly where the unsharded run does."""
-
-    def test_bit_equal_vs_single_device(self, rng, require_devices):
-        from warmup_fir_filter_tpu.kernels.chain_fused import (
-            chain_forward_fused,
-        )
-        from warmup_fir_filter_tpu.models.chain import (
-            chain_forward_time_sharded,
-        )
-
-        mesh = make_mesh({"data": 1, "time": 2},
-                         devices=require_devices(2))
-        cfg = ChainConfig()
-        channels, t_local = 8, 12288   # out_ext 10240 → 2 programs/shard
-        time = t_local * 2
-        re = rng.standard_normal((channels, time)).astype(np.float32)
-        im = rng.standard_normal((channels, time)).astype(np.float32)
-        single = np.asarray(chain_forward_fused(
-            re, im, cfg.resample_filter(), cfg.channelizer_filter(),
-            cfg.resample_up, cfg.resample_down, cfg.demod_k_f,
-            interpret=True))
-        sharded = np.asarray(chain_forward_time_sharded(
-            re, im, cfg, mesh=mesh))
-        np.testing.assert_array_equal(sharded, single)
-
-    def test_alignment_constraints_rejected(self, rng, require_devices):
-        from warmup_fir_filter_tpu.models.chain import (
-            chain_forward_time_sharded,
-        )
-
-        mesh = make_mesh({"data": 1, "time": 2},
-                         devices=require_devices(2))
-        bad = np.zeros((8, 2 * 12289), np.float32)  # T_local % down != 0
-        with pytest.raises(ValueError, match="T_local"):
-            chain_forward_time_sharded(bad, bad, ChainConfig(), mesh=mesh)
-        # Aligned but too short for the halo: exchange_halo_1d would
-        # silently clamp and misalign the retained window — must raise.
-        short = np.zeros((8, 2 * 1152), np.float32)
-        with pytest.raises(ValueError, match="halo width"):
-            chain_forward_time_sharded(short, short, ChainConfig(),
-                                       mesh=mesh)
+    cfg = dataclasses.replace(
+        ChainConfig(), resample_up=up, resample_down=down,
+        resample_taps=rs_taps, channelizer_taps=ch_taps,
+        use_fft_channelizer=use_fft)
+    msg = rng.standard_normal((channels, 3000)) * 0.3
+    re, im = fm_modulate(msg, cfg.demod_k_f)
+    got = np.asarray(chain_forward(re, im, cfg), np.float64)
+    want = chain_forward_golden(re, im, cfg)
+    assert got.shape == want.shape
+    # f32 stages against float64 (chip_smoke.py CHAIN_SNR_DB states why).
+    assert float(snr_db(want, got)) > 80.0, (up, down, rs_taps, ch_taps)
 
 
-class TestChainBf16Mode:
-    """r5 opt-in bf16 STORAGE mode of the fused chain: half the
-    input/scratch bytes, single-pass band dots, SNR-gated."""
-
-    def test_snr_on_fm_signal(self, rng):
-        from warmup_fir_filter_tpu.kernels.chain_fused import (
-            chain_forward_fused,
-        )
-        from warmup_fir_filter_tpu.ops.fftfilt import (
-            fir_overlap_save,
-            snr_db,
-        )
-        from warmup_fir_filter_tpu.ops.resample import design_lowpass
-
-        cfg = ChainConfig()
-        msg = rng.standard_normal((8, 40_000)).astype(np.float32)
-        msg = np.array(fir_overlap_save(msg, design_lowpass(63, 0.05)),
-                       np.float32)
-        msg = msg / np.abs(msg).max()
-        re, im = fm_modulate(msg, cfg.demod_k_f)
-        re = np.asarray(re, np.float32)
-        im = np.asarray(im, np.float32)
-        args = (cfg.resample_filter(), cfg.channelizer_filter(),
-                cfg.resample_up, cfg.resample_down, cfg.demod_k_f)
-        ref = np.asarray(chain_forward_fused(
-            re, im, *args, interpret=True), np.float64)
-        got = np.asarray(chain_forward_fused(
-            re, im, *args, precision="bf16", interpret=True), np.float64)
-        # measured ~53 dB on v5e and in interpret mode; gate with margin
-        assert float(snr_db(ref, got)) > 40.0
-
-    def test_unknown_precision_rejected(self):
-        from warmup_fir_filter_tpu.kernels.chain_fused import (
-            chain_forward_fused,
-        )
-
-        cfg = ChainConfig()
-        x = np.zeros((8, 3000), np.float32)
-        with pytest.raises(ValueError, match="precision"):
-            chain_forward_fused(
-                x, x, cfg.resample_filter(), cfg.channelizer_filter(),
-                2, 3, cfg.demod_k_f, precision="fp8")
-
-    def test_config_fused_precision_plumbed(self, rng):
-        """ChainConfig.fused_precision reaches the fused kernel."""
-        import dataclasses
-
-        from warmup_fir_filter_tpu.kernels.chain_fused import (
-            chain_forward_fused,
-        )
-
-        cfg = dataclasses.replace(ChainConfig(),
-                                  channelizer_backend="fused",
-                                  fused_precision="bf16")
-        re = rng.standard_normal((8, 6000)).astype(np.float32)
-        im = rng.standard_normal((8, 6000)).astype(np.float32)
-        via_config = np.asarray(chain_forward(re, im, cfg))
-        direct = np.asarray(chain_forward_fused(
-            re, im, cfg.resample_filter(), cfg.channelizer_filter(),
-            cfg.resample_up, cfg.resample_down, cfg.demod_k_f,
-            precision="bf16", interpret=True))
-        np.testing.assert_array_equal(via_config, direct)
+def test_chain_first_sample_zero(rng):
+    cfg = ChainConfig()
+    re, im = fm_modulate(rng.standard_normal((4, 3000)) * 0.3, cfg.demod_k_f)
+    out = np.asarray(chain_forward(re, im, cfg))
+    np.testing.assert_array_equal(out[:, 0], 0.0)

@@ -114,7 +114,7 @@ class TestQFormatDataclass:
         assert qf.scale == 4096
         assert qf.min_coeff_real == -8.0
         assert qf.max_coeff_real == Q412_MAX_REAL
-        assert qf.tpu_native
+        assert qf.int32_exact
 
     def test_quantize_ties_to_even(self):
         qf = QFormat(frac_bits=1, coeff_bits=8)

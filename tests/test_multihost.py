@@ -1,4 +1,4 @@
-"""2-process ``jax.distributed`` test: the DCN code path, exercised.
+"""2-process ``jax.distributed`` test: the multi-process path, exercised.
 
 Spawns two local processes that form a real multi-process JAX runtime
 (coordinator on localhost), build a mesh over the combined device set

@@ -136,3 +136,13 @@ class Test2DSharded:
         x = rng.integers(0, 256, size=(31, 4 * 32), dtype=np.uint8)
         with pytest.raises(ValueError, match="not divisible"):
             fir2d_fixed_sharded(x, FILTER_BANK_2D["gauss5"], mesh=mesh)
+
+
+def test_sharded_output_spans_mesh(rng, require_devices):
+    """Each device holds its own time block of the result."""
+    devices = require_devices(4)
+    mesh = make_mesh({"data": 1, "time": 4}, devices=devices)
+    x = rng.integers(0, 256, size=(2, 4 * 64), dtype=np.uint8)
+    out = fir1d_fixed_sharded(x, FILTER_BANKS[5]["sharpen"], mesh=mesh)
+    assert out.sharding.device_set == set(devices)
+    assert {s.data.shape for s in out.addressable_shards} == {(2, 64)}

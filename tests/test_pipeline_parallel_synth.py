@@ -35,8 +35,9 @@ class TestPipelinedChain:
         out = chain.run_microbatches(batches)
         for got, batch in zip(out, batches):
             expected = np.tanh(batch * 2.0).sum(axis=-1)
-            # Looser tolerance: TPU tanh differs from numpy's at ~1e-5
-            # relative before the 16-element reduction.
+            # Looser tolerance: an accelerator's f32 tanh can differ
+            # from numpy's at ~1e-5 relative before the 16-element
+            # reduction.
             np.testing.assert_allclose(got, expected, rtol=1e-4, atol=1e-4)
 
     def test_single_device_degrades_gracefully(self, rng):
@@ -181,3 +182,22 @@ class TestSyntheticCorpus:
         )
         assert result["stages"]["input"]["generated"] == 2
         assert result["stages"]["report_3tap"]["num_cases"] == 8
+
+
+@pytest.mark.parametrize("kind", ["gradient", "checker", "stripes", "noise",
+                                  "steps", "mix"])
+def test_rendered_image_has_spec_shape(kind):
+    """Every kind fills the whole (rows, cols) frame (a 1-row stripes
+    image once slipped through at any requested height)."""
+    from warmup_fir_filter_tpu.pipeline.synthetic import _render
+
+    img = _render(kind, (37, 53), np.random.default_rng(0))
+    assert img.shape == (37, 53)
+    assert img.dtype == np.uint8
+
+
+def test_reference_specs_sample_count():
+    from warmup_fir_filter_tpu.pipeline.synthetic import REFERENCE_SPECS
+
+    # 28-case matrix of the reference corpus: 7 images × 4 filters.
+    assert 4 * sum(r * c for _, _, (r, c) in REFERENCE_SPECS) == 67_975_252

@@ -120,10 +120,10 @@ class TestOutputStages:
             f.name: np.load(f)
             for f in store.vector_dir("fixed", 5).glob("*.npy")
         }
-        # Regenerate with the jnp backend into a fresh store.
-        store2 = ArtifactStore(store.root.parent / "artifacts_tpu")
+        # Regenerate with the device backend into a fresh store.
+        store2 = ArtifactStore(store.root.parent / "artifacts_device")
         generate_input_vectors(image_dir, store2)
-        generate_fixed_outputs(store2, tap=5, backend="tpu")
+        generate_fixed_outputs(store2, tap=5, backend="device")
         for f in store2.vector_dir("fixed", 5).glob("*.npy"):
             np.testing.assert_array_equal(np.load(f), golden_files[f.name])
 
@@ -145,15 +145,23 @@ class TestOutputStages:
 
 
 def test_fixed_backend_auto_dispatch(synthetic_rows):
-    """The auto backend must stay bit-exact across the MXU/Pallas split."""
+    """The device backend stays bit-exact on both sides of the unrolled /
+    blocked shift-MAC split (``ops/fir1d.py::TAP_BLOCK``)."""
     import numpy as np
 
-    from warmup_fir_filter_tpu.kernels.dispatch import fir1d_fixed_rows_auto
     from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
+    from warmup_fir_filter_tpu.pipeline.stages import _fixed_compute
 
     rng = np.random.default_rng(3)
     x = rng.integers(0, 256, size=(4, 400), dtype=np.uint8)
-    for num_taps in (5, 63, 131):  # MXU band path, long band, Pallas path
+    for num_taps in (5, 63, 131):  # unrolled, unrolled, blocked
         h = rng.uniform(-0.02, 0.02, num_taps)
-        got = np.asarray(fir1d_fixed_rows_auto(x, h))
+        got = _fixed_compute("device", x, h, QFormat())
         np.testing.assert_array_equal(got, fir1d_fixed_golden_rows(x, h))
+
+
+def test_fixed_backend_unknown_rejected(synthetic_rows):
+    with pytest.raises(ValueError, match="Unknown fixed backend"):
+        from warmup_fir_filter_tpu.pipeline.stages import _fixed_compute
+
+        _fixed_compute("mxu", synthetic_rows, np.ones(3) / 3, QFormat())

@@ -99,3 +99,45 @@ class TestFixedPolyphase:
         h = design_lowpass(15, 0.3, gain=2)
         assert resample_poly_fixed_golden(x, h, 2, 3).shape == (1, 67)
         assert resample_poly_fixed_golden(x, h, 3, 2).shape == (1, 150)
+
+
+# Cases carried over from the retired resampler kernel suite, now against
+# the phase-split slice path: ratios, long rows, long branch filters.
+
+@pytest.mark.parametrize("up,down", [(2, 3), (1, 2), (4, 3), (8, 5),
+                                     (3, 2), (5, 4)])
+def test_resample_matches_golden_ratios(rng, up, down):
+    h = design_lowpass(63, 0.8 / max(up, down), gain=up)
+    x = rng.integers(0, 256, size=(3, 2000)).astype(np.float32)
+    got = np.asarray(resample_poly(x, h, up, down), np.float64)
+    gold = resample_poly_golden(x, h, up, down)
+    assert got.shape == gold.shape
+    # f32 sums of ≤ 32 branch taps on u8-scale data.
+    np.testing.assert_allclose(got, gold, rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("time_len", [3000, 60_000])
+def test_resample_long_rows(rng, time_len):
+    h = design_lowpass(63, 0.3, gain=2)
+    x = rng.integers(0, 256, size=(3, time_len)).astype(np.float32)
+    got = np.asarray(resample_poly(x, h, 2, 3), np.float64)
+    np.testing.assert_allclose(got, resample_poly_golden(x, h, 2, 3),
+                               rtol=1e-5, atol=2e-3)
+
+
+def test_resample_long_branch_filter(rng):
+    # 1025 taps → 513 taps per polyphase branch.
+    h = design_lowpass(1025, 0.2, gain=2)
+    x = rng.integers(0, 256, size=(2, 3000)).astype(np.float32)
+    got = np.asarray(resample_poly(x, h, 2, 3), np.float64)
+    np.testing.assert_allclose(got, resample_poly_golden(x, h, 2, 3),
+                               rtol=1e-4, atol=2e-2)
+
+
+@pytest.mark.parametrize("up,down", [(2, 3), (1, 2), (4, 3), (3, 2)])
+def test_resample_fixed_bit_exact_ratios(rng, up, down):
+    h = design_lowpass(31, 0.8 / max(up, down), gain=up)
+    x = rng.integers(0, 256, size=(2, 777), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        np.asarray(resample_poly_fixed(x, h, up, down)),
+        resample_poly_fixed_golden(x, h, up, down))

@@ -9,7 +9,6 @@ from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu.ops.streaming import (
     Fir1DStream,
     FirStreamState,
-    auto_rows_split,
     host_emit_checksums,
 )
 
@@ -154,95 +153,56 @@ class TestStreamScanned:
             np.concatenate([sums_a, sums_b]), sums_full)
         np.testing.assert_array_equal(b.state.carry, full.state.carry)
 
-    @pytest.mark.parametrize("rows_split", [2, 4, 8])
-    @pytest.mark.parametrize("tap", [3, 5, 7])
-    def test_wide_geometry_bit_equal(self, rng, tap, rows_split):
-        """The row-split MXU step (r5) is bit-identical to the
-        delay-line contract for every split, including carry flow
-        across blocks."""
-        import jax.numpy as jnp
 
-        from warmup_fir_filter_tpu.models.filters import FILTER_BANKS
-        from warmup_fir_filter_tpu.ops.qformat import QFormat
-        from warmup_fir_filter_tpu.ops.streaming import (
-            _stream_step,
-            _stream_step_mxu_wide,
-        )
 
-        h = np.asarray(FILTER_BANKS[min(tap, 5)]["sharpen"])[:tap] \
-            if tap <= 5 else np.linspace(-2.0, 2.0, tap)
-        qf = QFormat()
-        h_fixed = jnp.asarray(qf.quantize_coeffs(h).astype(np.int32))
-        channels, width = 3, 64
-        carry = jnp.asarray(
-            rng.integers(0, 256, size=(channels, h.size - 1)), jnp.int32)
-        x = jnp.asarray(
-            rng.integers(0, 256, size=(channels, width)), jnp.int32)
-        for _ in range(2):  # two chained blocks: carry flows through
-            y_ref, carry_ref = _stream_step(
-                x, carry, h_fixed, h.size, qf.frac_bits, qf.acc_bits)
-            y_wide, carry_wide = _stream_step_mxu_wide(
-                x, carry, h, qf, h.size, rows_split)
-            np.testing.assert_array_equal(np.asarray(y_wide),
-                                          np.asarray(y_ref))
-            np.testing.assert_array_equal(np.asarray(carry_wide),
-                                          np.asarray(carry_ref))
-            carry = carry_ref
+@pytest.mark.parametrize("block", [1, 33, 100])
+@pytest.mark.parametrize("num_taps", [7, 63, 129, 300])
+def test_streaming_long_filters_equal_offline(rng, num_taps, block):
+    """Delay lines longer than a block, and filters past the unrolled
+    tap block (``ops/fir1d.py::TAP_BLOCK``), keep the stream contract."""
+    from warmup_fir_filter_tpu.ops.resample import design_lowpass
 
-    def test_auto_rows_split_properties(self):
-        # divides the width, respects the row cap and min sub-width
-        r = auto_rows_split(16, 4_000_000, 5)
-        assert 4_000_000 % r == 0 and 16 * r <= 4096
-        assert 4_000_000 // r >= 512
-        assert r == 256  # the bench geometry lands row-rich
-        # indivisible / tiny widths degrade to identity
-        assert auto_rows_split(16, 97, 5) == 1
-        assert auto_rows_split(4096, 1024, 5) == 1
+    h = design_lowpass(num_taps, 0.3)
+    x = rng.integers(0, 256, size=(2, 400), dtype=np.uint8)
+    emitted = _stream_all(Fir1DStream(h, channels=2), x, block)
+    center = num_taps // 2
+    np.testing.assert_array_equal(emitted[:, center:center + 400],
+                                  fir1d_fixed_golden_rows(x, h))
 
-    def test_pallas_windowed_scan_checksum_equal(self, rng):
-        """r5c: the Pallas window-copy scan pipeline (in-kernel
-        windowing, window-major FIR, iota-reindexed checksums) must be
-        checksum- and state-equal to the unsplit scan."""
-        import jax
-        import jax.numpy as jnp
 
-        from warmup_fir_filter_tpu.ops.streaming import (
-            pick_window_split,
-            stream_scanned,
-        )
+@pytest.mark.parametrize("num_taps", [3, 5, 63, 257])
+def test_scanned_matches_blockwise_taps(num_taps):
+    import jax.numpy as jnp
 
-        h = np.asarray(FILTER_BANKS[5]["sharpen"])
-        channels, width, blocks = 4, 16_384, 4
-        assert pick_window_split(channels, width, 5) == (512, 16)
-        data = rng.integers(0, 256, size=(blocks, channels, width),
-                            dtype=np.uint8)
-        dev = jnp.asarray(data)
+    from warmup_fir_filter_tpu.ops.resample import design_lowpass
+    from warmup_fir_filter_tpu.ops.streaming import stream_scanned
 
-        def block_fn(b):
-            return jax.lax.dynamic_index_in_dim(dev, b, keepdims=False)
+    h = design_lowpass(num_taps, 0.3)
+    channels, width, blocks = 3, 200, 4
+    block_fn = TestStreamScanned()._gen(channels, width)
+    scanned = Fir1DStream(h, channels)
+    sums = np.asarray(stream_scanned(scanned, block_fn, blocks))
+    manual = Fir1DStream(h, channels)
+    for b in range(blocks):
+        y = manual.process(np.asarray(block_fn(jnp.int32(b))))
+        np.testing.assert_array_equal(sums[b].astype(np.uint64),
+                                      host_emit_checksums(y))
+    np.testing.assert_array_equal(manual.state.carry, scanned.state.carry)
 
-        ref_stream = Fir1DStream(h, channels)
-        ref = np.asarray(stream_scanned(ref_stream, block_fn, blocks,
-                                        rows_split=1))
-        win_stream = Fir1DStream(h, channels)
-        got = np.asarray(stream_scanned(win_stream, block_fn, blocks,
-                                        rows_split="pallas"))
-        np.testing.assert_array_equal(got, ref)
-        np.testing.assert_array_equal(win_stream.state.carry,
-                                      ref_stream.state.carry)
 
-    def test_pallas_mode_gates(self, rng):
-        from warmup_fir_filter_tpu.ops.streaming import (
-            pick_window_split,
-            stream_scanned,
-        )
+def test_scanned_custom_emit(rng):
+    """A custom ``emit_fn`` sees each output block in order."""
+    import jax
+    import jax.numpy as jnp
 
-        # no geometry for indivisible widths / too-long taps
-        assert pick_window_split(4, 1000, 5) is None
-        assert pick_window_split(4, 16_384, 131) is None
-        h = np.asarray(FILTER_BANKS[5]["sharpen"])
-        st = Fir1DStream(h, 4)
-        with pytest.raises(ValueError, match="default emit"):
-            stream_scanned(st, lambda b: np.zeros((4, 16_384), np.uint8),
-                           1, rows_split="pallas",
-                           emit_fn=lambda y: y[:, :1])
+    from warmup_fir_filter_tpu.ops.streaming import stream_scanned
+
+    h = np.asarray(FILTER_BANKS[5]["sharpen"])
+    data = rng.integers(0, 256, size=(3, 2, 50), dtype=np.uint8)
+    dev = jnp.asarray(data)
+    block_fn = lambda b: jax.lax.dynamic_index_in_dim(dev, b, 0, False)  # noqa: E731
+    got = np.asarray(stream_scanned(Fir1DStream(h, 2), block_fn, 3,
+                                    emit_fn=lambda y: y))
+    manual = Fir1DStream(h, 2)
+    want = np.stack([manual.process(data[b]) for b in range(3)])
+    np.testing.assert_array_equal(got, want)

@@ -6,7 +6,7 @@
 // Python same-mode contract (SURVEY.md C1) — every entry point here
 // implements the single framework-wide same-mode center-aligned
 // contract, so the native layer cross-checks bit-for-bit against the
-// Python/TPU paths.
+// Python host and device paths.
 #pragma once
 
 #include <cstdint>

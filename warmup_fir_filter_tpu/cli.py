@@ -4,7 +4,7 @@ Deterministic 5-stage verification workflow with the reference's flag
 surface (``pipeline_fir_1d.py:34-98,102-175``): input vectors → ideal
 outputs → fixed outputs → compare reports → image restore, with per-stage
 skips, tap selection, overwrite/strict flags, and top-k — plus the
-TPU-native extensions: ``--backend {auto,tpu,pallas,mxu,golden}`` and the
+extensions: ``--backend {device,golden}`` for the fixed stage and the
 ``--frac-bits/--acc-bits/--coeff-bits`` numeric format
 (``gen_fixed_output.py:174-191``).
 
@@ -27,6 +27,7 @@ from warmup_fir_filter_tpu.pipeline.stages import (
     generate_ideal_outputs,
     generate_input_vectors,
 )
+from warmup_fir_filter_tpu.utils.compile_cache import enable_compile_cache
 from warmup_fir_filter_tpu.utils.logging import stage_line
 
 DEFAULT_IMAGE_DIR = Path("/root/reference/fir_1d/sim/img")
@@ -37,7 +38,7 @@ def run_pipeline(
     image_dir: Path,
     artifact_root: Path,
     tap: str = "all",
-    backend: str = "tpu",
+    backend: str = "device",
     qformat: QFormat = QFormat(),
     overwrite_vectors: bool = False,
     overwrite_images: bool = False,
@@ -143,8 +144,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         help="Root directory for all pipeline artifacts.")
     parser.add_argument("--tap", choices=("all", "3", "5"), default="all",
                         help="Tap group to process (default: all).")
-    parser.add_argument("--backend", choices=FIXED_BACKENDS, default="tpu",
-                        help="Fixed-point compute backend (default: tpu).")
+    parser.add_argument("--backend", choices=FIXED_BACKENDS, default="device",
+                        help="Fixed-point compute backend (default: device).")
     parser.add_argument("--frac-bits", type=int, default=12)
     parser.add_argument("--acc-bits", type=int, default=32)
     parser.add_argument("--coeff-bits", type=int, default=16)
@@ -174,6 +175,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    enable_compile_cache()
     if args.synthesize_corpus:
         from warmup_fir_filter_tpu.pipeline.synthetic import synthesize_corpus
 

@@ -1,7 +1,7 @@
 """ctypes bindings to the native C++ tools library (``tools/``).
 
 The native layer is the host-side performance/verification complement of
-the TPU kernels (SURVEY.md §2.2): a streaming Direct-Form-I FIR, a
+the device paths (SURVEY.md §2.2): a streaming Direct-Form-I FIR, a
 bit-exact fixed-point golden oracle, a radix-2 FFT over the completed
 complex/twiddle library, and a golden-vector bit-compare.
 

@@ -6,7 +6,7 @@ Quadrature (polar-discriminator) FM demod over complex baseband rows:
 
 which recovers the instantaneous frequency normalized by the deviation
 ``k_f`` (cycles/sample per unit message).  Complex samples are carried as
-separate I/Q float planes — the split re/im layout the TPU prefers (and
+separate I/Q float planes — real arrays on the device (and
 the realization of the reference's ``MyComplex`` scaffolding,
 ``lib/mycomplex.h:10-41``, as data layout rather than a class).
 """
@@ -38,7 +38,9 @@ def _fm_demod_core(i_q: tuple[jnp.ndarray, jnp.ndarray], inv_gain: jnp.ndarray):
     im_prev = jnp.concatenate([im[:, :1], im[:, :-1]], axis=1)
     dot = re * re_prev + im * im_prev
     cross = im * re_prev - re * im_prev
-    return jnp.arctan2(cross, dot) * inv_gain
+    # Sample 0 is exactly 0: with fused multiply-adds ``cross`` there is
+    # one product's rounding error, not 0.
+    return (jnp.arctan2(cross, dot) * inv_gain).at[:, 0].set(0.0)
 
 
 def fm_demodulate(re, im, k_f: float) -> jax.Array:

@@ -40,17 +40,9 @@ def pick_nfft(num_taps: int) -> int:
 def frame_overlap(xp, nfft: int, step: int, num_blocks: int) -> jnp.ndarray:
     """(C, T) → (C, num_blocks, nfft) overlapping frames, hop ``step``.
 
-    Gather-free framing: a 2-D index gather (``xp[:, idx]``) is
-    pathologically slow on TPU (measured ~60 ms where the roofline says
-    ~1 ms for config 4).  Instead the stream is cut into ``step``-sized
-    hops with a reshape and each frame is the concatenation of
-    ``ceil(nfft/step)`` consecutive hops.
-
-    CAVEAT (r5, docs/roofline.md "the framing passes were the
-    bottleneck"): XLA does NOT lower this to bandwidth-bound copies on
-    TPU — the hop-reshape/concat pattern measures ~23 GB/s.  Fine for
-    the CPU/jnp paths and one-shot staging; HOT TPU paths must build
-    their windows in-kernel instead (``fft_pallas`` stream kernel).
+    Gather-free framing: the stream is cut into ``step``-sized hops
+    with a reshape and each frame is the concatenation of
+    ``ceil(nfft/step)`` consecutive hops, so no index gather is needed.
     """
     channels = xp.shape[0]
     m = -(-nfft // step)  # hops spanned by one frame

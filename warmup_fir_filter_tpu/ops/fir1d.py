@@ -1,9 +1,9 @@
-"""1-D FIR compute paths in jnp (the TPU "model" and "sim" paths).
+"""1-D FIR compute paths in jnp (the device "model" and "sim" paths).
 
 Two jit-compiled paths over batched rows, mirroring the reference's
 model/sim split (SURVEY.md §7.1) as two configs of one kernel library:
 
-- :func:`fir1d_ideal_rows_jnp` — the float *model* path (f32 on TPU).
+- :func:`fir1d_ideal_rows_jnp` — the float *model* path (f32 on device).
 - :func:`fir1d_fixed_rows_jnp` — the bit-exact int32 *sim* path,
   reproducing the golden contract of ``fir_1d_fixed_ref.py:75-130``
   for every ``acc_bits`` ≤ 32 via int32 modular arithmetic.
@@ -15,9 +15,11 @@ yields the same value as the reference's unbounded-int MAC followed by
 ``& mask`` + MSB sign restore.  The bias-round-shift is decomposed into
 ``(acc >> fb) + carry`` (carry ∈ {0,1}) so no step can overflow int32.
 
-The convolution itself is expressed as L static shifted multiply-adds over
-a zero-padded row block — XLA fuses this into a single VPU loop; the
-hand-scheduled Pallas version lives in ``kernels/fir_pallas.py``.
+The convolution itself is L shifted multiply-adds over a zero-padded row
+block (:func:`shift_mac`), in blocks of at most ``TAP_BLOCK`` unrolled
+taps.  A short filter is one block, which XLA fuses into one elementwise
+loop; the blocks after the first run in a ``fori_loop``, so a 4096-tap
+filter traces to two 64-tap blocks instead of 4096 slices.
 """
 
 from __future__ import annotations
@@ -27,8 +29,12 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from warmup_fir_filter_tpu.ops.qformat import QFormat
+
+#: Most taps per unrolled block of :func:`shift_mac`.
+TAP_BLOCK = 64
 
 
 def pad_rows_same_mode(x: jnp.ndarray, num_taps: int) -> jnp.ndarray:
@@ -41,15 +47,38 @@ def pad_rows_same_mode(x: jnp.ndarray, num_taps: int) -> jnp.ndarray:
     return jnp.pad(x, ((0, 0), (num_taps - 1 - center, center)))
 
 
+def shift_mac(xp: jnp.ndarray, h: jnp.ndarray, num_taps: int,
+              acc: jnp.ndarray) -> jnp.ndarray:
+    """``acc + Σ_k h[k] · xp[:, L-1-k : L-1-k+N]`` over halo'd rows.
+
+    ``xp`` is (B, N + L - 1) with the same-mode halo attached.  Taps are
+    taken in reversed order ``j = L-1-k`` so window ``j`` starts at
+    column ``j``, and zero-padded to whole blocks of
+    ``min(L, TAP_BLOCK)`` taps, each unrolled.  Block 0 runs before the
+    ``fori_loop`` over the rest, so the loop's carry already depends on
+    ``xp`` (as ``shard_map`` requires of a carry that varies per shard).
+    Integer sums wrap mod 2^32 and are exact in any order.
+    """
+    n = acc.shape[1]
+    width = min(num_taps, TAP_BLOCK)
+    blocks = -(-num_taps // width)
+    pad = blocks * width - num_taps
+    h_rev = jnp.pad(h[::-1], (0, pad)).reshape(blocks, width)
+    xp = jnp.pad(xp, ((0, 0), (0, pad)))
+
+    def block(b, acc):
+        for j in range(width):
+            window = lax.dynamic_slice_in_dim(xp, b * width + j, n, 1)
+            acc = acc + h_rev[b, j] * window
+        return acc
+
+    return lax.fori_loop(1, blocks, block, block(0, acc))
+
+
 @partial(jax.jit, static_argnames=("num_taps",))
 def _ideal_core(x_f32: jnp.ndarray, h_f32: jnp.ndarray, num_taps: int):
-    n = x_f32.shape[1]
     xp = pad_rows_same_mode(x_f32, num_taps)
-    acc = jnp.zeros_like(x_f32)
-    for k in range(num_taps):
-        start = num_taps - 1 - k
-        acc = acc + h_f32[k] * jax.lax.dynamic_slice_in_dim(xp, start, n, 1)
-    return acc
+    return shift_mac(xp, h_f32, num_taps, jnp.zeros_like(x_f32))
 
 
 def fir1d_ideal_rows_jnp(x_u8, h) -> jax.Array:
@@ -70,8 +99,8 @@ def fixed_epilogue_i32(acc: jnp.ndarray, frac_bits: int,
     """Wraparound → bias-round-shift → saturate, all int32-exact.
 
     The shared hardware epilogue of the golden contract
-    (``fir_1d_fixed_ref.py:94,110-128``), reused by the jnp path, the
-    Pallas kernel, and the sharded path.
+    (``fir_1d_fixed_ref.py:94,110-128``), reused by the 1-D, 2-D,
+    resampling, streaming and sharded paths.
     """
     # Accumulator wraparound to acc_bits (+ sign extension) expressed as
     # an arithmetic shift pair.
@@ -104,10 +133,7 @@ def fixed_fir_prehaloed_i32(
     """
     n = x_ext_i32.shape[1] - (num_taps - 1)
     acc = jnp.zeros(x_ext_i32.shape[:1] + (n,), jnp.int32)
-    for k in range(num_taps):
-        start = num_taps - 1 - k
-        window = jax.lax.dynamic_slice_in_dim(x_ext_i32, start, n, 1)
-        acc = acc + h_fixed_i32[k] * window  # int32 MAC, wraps mod 2^32
+    acc = shift_mac(x_ext_i32, h_fixed_i32, num_taps, acc)  # wraps mod 2^32
     return fixed_epilogue_i32(acc, frac_bits, acc_bits)
 
 
@@ -127,15 +153,15 @@ def _fixed_core(
 def fir1d_fixed_rows_jnp(
     x_u8, h, qformat: QFormat = QFormat()
 ) -> jax.Array:
-    """Bit-exact fixed-point FIR over (B, N) uint8 rows on TPU.
+    """Bit-exact fixed-point FIR over (B, N) uint8 rows on the device.
 
-    Requires ``qformat.tpu_native`` (acc_bits ≤ 32); wider accumulators
+    Requires ``qformat.int32_exact`` (acc_bits ≤ 32); wider accumulators
     fall back to the host golden model.
     """
-    if not qformat.tpu_native:
+    if not qformat.int32_exact:
         raise ValueError(
             f"acc_bits={qformat.acc_bits} > 32 is not representable in the "
-            "int32 TPU sim path; use models.golden.fir1d_fixed_golden_rows."
+            "int32 device path; use models.golden.fir1d_fixed_golden_rows."
         )
     h_fixed = qformat.quantize_coeffs(h).astype(np.int32)
     x_i32 = jnp.asarray(x_u8, dtype=jnp.int32)

@@ -13,9 +13,8 @@ natural 2-D extension of the 1-D golden spec (``fir_1d_golden_spec_v1``):
   shift by ``frac_bits``, saturate to uint8;
 - ideal path: float64 (host golden) / float32 (device), unclamped.
 
-A dense 2-D FIR is expressed as Lr row-convolutions accumulated in int32
-— which lets the TPU paths reuse the 1-D machinery (and the MXU band
-kernel) tap-row by tap-row.
+A dense 2-D FIR is expressed as Lr·Lc shifted multiply-adds accumulated
+in int32, with the 1-D path's epilogue.
 """
 
 from __future__ import annotations
@@ -130,11 +129,11 @@ def fixed_fir2d_prehaloed_i32(
 def fir2d_fixed_jnp(
     x_u8, h, qformat: QFormat = QFormat()
 ) -> jax.Array:
-    """Bit-exact fixed-point 2-D FIR on TPU (int32 sim path)."""
-    if not qformat.tpu_native:
+    """Bit-exact fixed-point 2-D FIR on the device (int32 sim path)."""
+    if not qformat.int32_exact:
         raise ValueError(
             f"acc_bits={qformat.acc_bits} > 32 is not representable in the "
-            "int32 TPU sim path; use fir2d_fixed_golden."
+            "int32 device path; use fir2d_fixed_golden."
         )
     h_fixed = qformat.quantize_coeffs(np.asarray(h)).astype(np.int32)
     taps_r, taps_c = h_fixed.shape
@@ -163,7 +162,7 @@ def _ideal2d_core(x_f32, h_f32, taps_r, taps_c):
 
 
 def fir2d_ideal_jnp(x_u8, h) -> jax.Array:
-    """Float32 ideal 2-D FIR on TPU (model path). Unclamped."""
+    """Float32 ideal 2-D FIR on the device (model path). Unclamped."""
     h64 = np.asarray(h, dtype=np.float64)
     return _ideal2d_core(
         jnp.asarray(x_u8, jnp.float32),

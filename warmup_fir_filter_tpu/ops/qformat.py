@@ -4,7 +4,7 @@ The reference repo implements its hardware numerics inline inside a scalar
 Python loop (``fir_1d/model/python/fir_1d_fixed_ref.py:12-130``).  Here the
 same contract is factored into a :class:`QFormat` config plus a small set of
 bit-exact primitives that run identically in numpy (the trusted host oracle)
-and in jnp int32 (the TPU sim path, including inside Pallas kernels).
+and in jnp int32 (the device sim path).
 
 The three distinct rounding modes of the reference (SURVEY.md §3.2) are kept
 strictly separate:
@@ -15,7 +15,7 @@ strictly separate:
 3. output *bias-add then arithmetic shift* (round-half-up in two's
    complement, ``fir_1d_fixed_ref.py:118-120``).
 
-TPU note: everything here is formulated so that it is exact in **int32
+Device note: everything here is formulated so that it is exact in **int32
 modular arithmetic** (XLA integers wrap two's-complement).  In particular:
 
 - accumulator wraparound to ``acc_bits`` ≤ 32 is a pair of arithmetic
@@ -97,8 +97,8 @@ class QFormat:
         return np.dtype(_COEFF_DTYPES[self.coeff_bits])
 
     @property
-    def tpu_native(self) -> bool:
-        """True when the jnp int32 sim path reproduces this format exactly.
+    def int32_exact(self) -> bool:
+        """True when the jnp int32 device path reproduces this format exactly.
 
         int32 modular arithmetic emulates any ``acc_bits`` ≤ 32 (a single
         truncate-and-sign-extend recovers ``sum mod 2^acc_bits`` because
@@ -166,7 +166,7 @@ def bias_round_shift_np(acc: np.ndarray, frac_bits: int) -> np.ndarray:
     """Round-half-up rescale: ``(acc + 2^(fb-1)) >> fb`` without overflow.
 
     Decomposed into arithmetic shift + {0,1} carry so the identical
-    formulation is reusable in int32 on TPU.  Matches
+    formulation is reusable in int32 on the device.  Matches
     ``fir_1d_fixed_ref.py:118-120`` bit-for-bit for any int64 ``acc``.
     """
     acc = np.asarray(acc, dtype=np.int64)

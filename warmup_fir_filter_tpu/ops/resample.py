@@ -129,9 +129,7 @@ def _phase_plan(up: int, down: int, center: int, out_len: int):
     the outputs ``m ≡ t (mod P)``, whose polyphase branch is constant
     (``r_t = (t·Q + c) mod P``) and whose input anchor is affine
     (``a0_t + Q·k`` for the k-th output of the phase).  This turns the
-    per-output gather formulation into **strided slices** — TPU gathers
-    over megasample index vectors measured ~60× off the roofline (see
-    docs/architecture.md), strided ``lax.slice`` is a plain DMA pattern.
+    per-output gather formulation into **strided slices**.
     """
     plan = []
     for t in range(up):
@@ -151,20 +149,12 @@ def _poly_core(xp, taps_np, plan, up, down, num_branches, pad_left, dtype):
     exactly.  Returns the phase-interleaved (C, ceil·P) accumulator
     (callers crop to ``out_len``).
 
-    Data movement: ONE phase-split relayout up front — ``xp`` reshaped
-    to ``(C, T/Q, Q)`` and transposed so each downsample phase is a
-    contiguous row — then every tap contribution is a *contiguous*
-    static slice.  (Earlier formulations paid 60×: per-output index
-    gathers first, then per-tap stride-Q ``lax.slice``s, both of which
-    lower to relayout passes per tap on TPU.)
+    Data movement: the Q downsample phases are split once up front (Q
+    strided slices, the only non-contiguous accesses); every tap
+    contribution is then a *contiguous* static slice of a phase.
     """
     channels = xp.shape[0]
     max_count = max(count for _, _, count in plan)
-    # Split the Q downsample phases ONCE (Q strided slices — the only
-    # non-contiguous accesses); every tap contribution below is then a
-    # contiguous static slice of a phase.  (A reshape-to-(…, Q) split
-    # was 2× worse: a 3-wide minor dim occupies 3/128 lanes of every
-    # tile.)
     total = xp.shape[1]
     total_q = -(-total // down)
     if total_q * down != total:
@@ -202,35 +192,12 @@ def _poly_float_core(x_f32, plan, up, down, num_branches, out_len, taps_key):
     return out[:, :out_len]
 
 
-def resample_poly(
-    x, h, up: int, down: int, *, precision: str = "auto"
-) -> jax.Array:
+def resample_poly(x, h, up: int, down: int) -> jax.Array:
     """Float32 polyphase resampler on device over (C, T) rows.
 
-    ``precision`` selects the backend:
-
-    - ``"auto"`` (default): the MXU banded-matmul kernel
-      (``kernels/resample_mxu.py``, bf16x3 ≈114 dB vs f64) on TPU when
-      P | 128; the exact slice path elsewhere.  The slice path pays
-      ~P·J elementwise passes — measured 37× off the roofline on the
-      chain's 2/3·63-tap stage — so "auto" is the production default.
-    - ``"exact"``: the slice path (bit-stable f32 accumulation order).
-    - ``"bf16x3"`` / ``"highest"``: force the MXU kernel's mode.
+    The phase-split slice path: ~P·J elementwise multiply-adds in f32,
+    in a fixed accumulation order (ascending branch tap).
     """
-    if precision not in ("auto", "exact", "bf16x3", "highest"):
-        raise ValueError(f"unknown precision {precision!r}")
-    if precision == "auto":
-        precision = (
-            "bf16x3"
-            if jax.default_backend() == "tpu" and 128 % up == 0
-            else "exact"
-        )
-    if precision != "exact":
-        from warmup_fir_filter_tpu.kernels.resample_mxu import (
-            resample_poly_mxu,
-        )
-
-        return resample_poly_mxu(x, h, up, down, precision=precision)
     h64 = np.asarray(h, np.float64)
     x_f32 = jnp.asarray(x, jnp.float32)
     n = int(x_f32.shape[1])
@@ -263,10 +230,10 @@ def resample_poly_fixed(
     x_u8, h, up: int, down: int, qformat: QFormat = QFormat()
 ) -> jax.Array:
     """Bit-exact fixed-point polyphase resampler on device."""
-    if not qformat.tpu_native:
+    if not qformat.int32_exact:
         raise ValueError(
             f"acc_bits={qformat.acc_bits} > 32 is not representable in the "
-            "int32 TPU sim path; use resample_poly_fixed_golden."
+            "int32 device path; use resample_poly_fixed_golden."
         )
     h_fixed = qformat.quantize_coeffs(np.asarray(h)).astype(np.int64)
     x_i32 = jnp.asarray(x_u8, jnp.int32)

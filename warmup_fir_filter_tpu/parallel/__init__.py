@@ -1,10 +1,9 @@
 """Multi-chip sharding layer: mesh helpers, halo exchange, resharding.
 
 The reference has zero parallelism (SURVEY.md §2.3); this package supplies
-the TPU-native axes mandated by BASELINE.json's north star: data parallel
-over channels/cases, sequence parallel over time blocks with overlap-save
-halo exchange riding ICI (``ppermute``), and channel↔time resharding
-(``all_to_all``).
+the axes mandated by BASELINE.json's north star: data parallel over
+channels/cases, sequence parallel over time blocks with overlap-save halo
+exchange (``ppermute``), and channel↔time resharding (``all_to_all``).
 """
 
 from warmup_fir_filter_tpu.parallel.mesh import make_mesh

@@ -1,14 +1,14 @@
-"""Multi-host runtime initialization (DCN-crossing meshes).
+"""Multi-host runtime initialization (meshes that cross hosts).
 
 Wraps ``jax.distributed.initialize`` (SURVEY.md §5.8 build equivalent):
-on a multi-host pod slice every host calls :func:`initialize_multihost`
+on a multi-host cluster every host calls :func:`initialize_multihost`
 before any backend use; mesh construction then spans all hosts' devices
 so the named-axis collectives (``ppermute`` halos, ``all_to_all``
-reshard, ``psum`` metric reductions) compile onto ICI within a slice and
-DCN across slices automatically.
+reshard, ``psum`` metric reductions) run within a host over its
+device links (NVLink on a GPU host) and across hosts over the network.
 
-Single-host / single-process environments (including this repo's CI and
-the bench chip) are a no-op — call sites never need to branch.
+Single-process environments (CI, one host with one or four cards) are a
+no-op — call sites never need to branch.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ def initialize_multihost(
 
     Arguments default from the standard env vars
     (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID``) and from TPU metadata when on a pod slice.
+    ``JAX_PROCESS_ID``).  Nothing discovers a cluster on its own: a
+    multi-process run passes all three.
 
     Returns True when a multi-process runtime was initialized, False for
     the single-process no-op.
@@ -57,8 +58,8 @@ def global_mesh_axes(time_parallel: int = 1) -> dict[str, int]:
     """Suggested mesh axes for the current device population.
 
     Puts ``time_parallel`` devices on the sequence-parallel axis and the
-    rest on the data axis — halos stay on ICI neighbors while channels
-    spread across the remaining fan-out.
+    rest on the data axis.  Cards on one host are joined all to all, so
+    the split follows the algorithm, not a link topology.
     """
     total = len(jax.devices())
     if total % time_parallel:

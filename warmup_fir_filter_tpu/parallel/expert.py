@@ -38,10 +38,10 @@ def filter_bank_fixed_sharded(
     Returns (F, C, T) uint8, sharded along the filter axis.  Bit-exact
     per filter against the single-chip fixed path.
     """
-    if not qformat.tpu_native:
+    if not qformat.int32_exact:
         raise ValueError(
             f"acc_bits={qformat.acc_bits} > 32 is not representable in the "
-            "int32 TPU sim path."
+            "int32 device path."
         )
     h_bank = np.asarray(h_bank, np.float64)
     if h_bank.ndim != 2:

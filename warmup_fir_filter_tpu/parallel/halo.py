@@ -2,8 +2,9 @@
 
 The convolution analogue of ring attention (SURVEY.md §2.3): a long
 stream is sharded along time across mesh devices; each shard exchanges
-``L-1`` boundary samples with its neighbors over ICI via
-``jax.lax.ppermute`` and then runs the *same* pre-haloed fixed-point core
+``L-1`` boundary samples with its neighbors via ``jax.lax.ppermute``
+(NVLink between the cards of one host) and then runs the *same*
+pre-haloed fixed-point core
 as the single-chip path, so shard boundaries are bit-identical to the
 global zero-padded computation.
 
@@ -83,17 +84,19 @@ def fir1d_fixed_sharded(
     Requires C and T divisible by the respective mesh axis sizes (pad at
     the caller for ragged streams).
     """
-    if not qformat.tpu_native:
+    if not qformat.int32_exact:
         raise ValueError(
             f"acc_bits={qformat.acc_bits} > 32 is not representable in the "
-            "int32 TPU sim path."
+            "int32 device path."
         )
     h_fixed = qformat.quantize_coeffs(h).astype(np.int32)
     num_taps = int(h_fixed.size)
     center = num_taps // 2
     left_w, right_w = num_taps - 1 - center, center
 
-    x = jnp.asarray(x_u8, dtype=jnp.int32)
+    # Shards go straight from the host (or their current placement) to
+    # their devices; the int32 widening happens per shard in the jit.
+    x = x_u8 if isinstance(x_u8, jax.Array) else np.asarray(x_u8)
     channels, time = x.shape
     for size, axis in ((channels, channel_axis), (time, time_axis)):
         if size % mesh.shape[axis]:
@@ -112,6 +115,7 @@ def fir1d_fixed_sharded(
         out_specs=P(channel_axis, time_axis),
     )
     def _step(x_loc, h_i32):
+        x_loc = x_loc.astype(jnp.int32)
         # Comm/compute overlap (r4): issue the halo ppermutes FIRST,
         # compute the interior — the N−(L−1) outputs that need no
         # neighbor data — while they fly, then finish the two boundary
@@ -210,7 +214,7 @@ def fir2d_fixed_sharded(
     The 2-D extension of :func:`fir1d_fixed_sharded`: image rows shard
     over ``row_axis`` and columns over ``col_axis``; every shard
     exchanges its ``(Lr-1, Lc-1)`` same-mode-asymmetric halos (corners
-    included) with its mesh neighbors over ICI and runs the pre-haloed
+    included) with its mesh neighbors and runs the pre-haloed
     int32 core (``ops/fir2d.py::fixed_fir2d_prehaloed_i32``), so shard
     boundaries are bit-identical to the global zero-padded golden
     contract (``fir2d_fixed_golden``).
@@ -218,10 +222,10 @@ def fir2d_fixed_sharded(
     Requires H and W divisible by the respective mesh axis sizes (pad
     at the caller for ragged images).
     """
-    if not qformat.tpu_native:
+    if not qformat.int32_exact:
         raise ValueError(
             f"acc_bits={qformat.acc_bits} > 32 is not representable in the "
-            "int32 TPU sim path."
+            "int32 device path."
         )
     h_fixed = qformat.quantize_coeffs(np.asarray(h)).astype(np.int32)
     taps_r, taps_c = h_fixed.shape
@@ -229,7 +233,7 @@ def fir2d_fixed_sharded(
     top_w, bottom_w = taps_r - 1 - center_r, center_r
     left_w, right_w = taps_c - 1 - center_c, center_c
 
-    x = jnp.asarray(x_u8, dtype=jnp.int32)
+    x = x_u8 if isinstance(x_u8, jax.Array) else np.asarray(x_u8)
     rows, cols = x.shape
     for size, axis in ((rows, row_axis), (cols, col_axis)):
         if size % mesh.shape[axis]:
@@ -249,6 +253,7 @@ def fir2d_fixed_sharded(
         out_specs=P(row_axis, col_axis),
     )
     def _step(x_loc, h_i32):
+        x_loc = x_loc.astype(jnp.int32)
         h_loc, w_loc = x_loc.shape
         if h_loc < taps_r or w_loc < taps_c:
             # Shard too small for an interior: plain exchange+compute.

@@ -1,4 +1,4 @@
-"""Channel↔time resharding over ICI (the Ulysses analogue for DSP).
+"""Channel↔time resharding (the Ulysses analogue for DSP).
 
 A (C, T) stream bank can live on a mesh axis in two layouts:
 
@@ -8,7 +8,7 @@ A (C, T) stream bank can live on a mesh axis in two layouts:
   right for FFT overlap-save and halo-exchange convolution along time.
 
 ``jax.lax.all_to_all`` inside ``shard_map`` flips between them in one
-collective that rides ICI (SURVEY.md §2.3 "Ulysses-style").
+collective (SURVEY.md §2.3 "Ulysses-style").
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ program — the GPipe-style schedule as pure dataflow:
 - one ``lax.fori_loop`` runs ``T + S - 1`` ticks; at tick ``t`` device
   ``s`` processes microbatch ``t - s`` (the 1F schedule);
 - activations move to the next stage with a single
-  ``lax.ppermute`` per tick — the halo pattern's cousin, riding ICI;
+  ``lax.ppermute`` per tick — the halo pattern's cousin;
 - stage heterogeneity comes from the stage index (``lax.axis_index``):
   the stage function receives it and selects parameters/behavior
   (``lax.switch``, gathered parameter banks, ...) — SPMD-style, every

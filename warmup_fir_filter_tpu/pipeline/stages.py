@@ -3,19 +3,18 @@
 One tap-generic implementation replaces the reference's per-tap clones
 (``gen_ideal_output.py`` / ``gen_fixed_output.py`` and the verbatim
 3tap/5tap report pair — SURVEY.md P7/P8).  Whole images are processed as
-row batches in one vectorized/TPU call instead of per-row interpreted
+row batches in one vectorized/device call instead of per-row interpreted
 loops (``gen_ideal_output.py:37-50``).
 
 Backends for the fixed (sim) stage:
 
-- ``"tpu"``     jit int32 jnp path (bit-exact, default; runs on whatever
-                accelerator JAX selected),
-- ``"pallas"``  hand-written Pallas TPU kernel,
+- ``"device"``  jit int32 jnp path (bit-exact, default; runs on whatever
+                device JAX selected),
 - ``"golden"``  trusted numpy oracle (host).
 
-The ideal (model) stage always uses the float64 numpy golden so that
-ideal artifacts are bit-identical to the reference's (f64 is not TPU
-native); the f32 on-device model path is cross-checked in tests/bench.
+The ideal (model) stage always uses the float64 numpy golden on the host
+so that ideal artifacts are bit-identical to the reference's; the f32
+on-device model path is cross-checked in tests.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from warmup_fir_filter_tpu.models.golden import (
     fir1d_fixed_golden_rows,
     fir1d_ideal_golden_rows,
 )
+from warmup_fir_filter_tpu.ops.fir1d import fir1d_fixed_rows_jnp
 from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu.pipeline.artifacts import (
     ArtifactStore,
@@ -39,7 +39,7 @@ from warmup_fir_filter_tpu.utils import imageio
 from warmup_fir_filter_tpu.utils.logging import timed_entry_point
 from warmup_fir_filter_tpu.utils.profiling import StageTimer
 
-FIXED_BACKENDS = ("auto", "tpu", "pallas", "mxu", "golden")
+FIXED_BACKENDS = ("device", "golden")
 
 
 def _preview_payload(gray_u8: np.ndarray, *, max_rows: int = 8,
@@ -157,26 +157,10 @@ def _load_input_u8(path: Path) -> np.ndarray:
 
 def _fixed_compute(backend: str, x_u8: np.ndarray, h: np.ndarray,
                    qformat: QFormat) -> np.ndarray:
-    if backend == "golden" or not qformat.tpu_native:
+    if backend == "golden" or not qformat.int32_exact:
         return fir1d_fixed_golden_rows(x_u8, h, qformat)
-    if backend == "auto":
-        from warmup_fir_filter_tpu.kernels.dispatch import (
-            fir1d_fixed_rows_auto,
-        )
-
-        return np.asarray(fir1d_fixed_rows_auto(x_u8, h, qformat))
-    if backend == "tpu":
-        from warmup_fir_filter_tpu.ops.fir1d import fir1d_fixed_rows_jnp
-
+    if backend == "device":
         return np.asarray(fir1d_fixed_rows_jnp(x_u8, h, qformat))
-    if backend == "pallas":
-        from warmup_fir_filter_tpu.kernels.fir_pallas import fir1d_fixed_rows_pallas
-
-        return np.asarray(fir1d_fixed_rows_pallas(x_u8, h, qformat))
-    if backend == "mxu":
-        from warmup_fir_filter_tpu.kernels.fir_mxu import fir1d_fixed_rows_mxu
-
-        return np.asarray(fir1d_fixed_rows_mxu(x_u8, h, qformat))
     raise ValueError(f"Unknown fixed backend={backend!r}; expected {FIXED_BACKENDS}")
 
 
@@ -198,9 +182,7 @@ def generate_ideal_outputs(
     if not input_files:
         raise FileNotFoundError(f"No input .npy files found in {store.input_dir}")
 
-    # The ideal (model) stage runs the float64 numpy golden on the host;
-    # the HBM roofline does not apply, so no sol_fraction is reported.
-    with StageTimer(f"gen_ideal_outputs_{tap}tap", sol_msps=None,
+    with StageTimer(f"gen_ideal_outputs_{tap}tap",
                     generated=0, skipped=0) as counts:
         for in_path in input_files:
             case_stem = ArtifactStore.case_stem_of_input(in_path)
@@ -238,7 +220,7 @@ def generate_fixed_outputs(
     *,
     tap: int,
     qformat: QFormat = QFormat(),
-    backend: str = "tpu",
+    backend: str = "device",
     overwrite: bool = False,
     coeff_map: dict[str, list[float]] | None = None,
 ) -> int:
@@ -258,9 +240,6 @@ def generate_fixed_outputs(
     if not input_files:
         raise FileNotFoundError(f"No input .npy files found in {store.input_dir}")
 
-    # Roofline-fraction accounting: the fixed stage is the headline compute
-    # path; its [OK] line reports achieved Msamples/s vs the HBM speed of
-    # light (VERDICT r1 item 7 — profiling wired into the product).
     with StageTimer(f"gen_fixed_outputs_{tap}tap",
                     generated=0, skipped=0) as counts:
         for in_path in input_files:

@@ -31,6 +31,19 @@ DEFAULT_SPECS: tuple[tuple[str, str, tuple[int, int]], ...] = (
     ("img_007_large_mix", "mix", (1536, 2048)),
 )
 
+#: The reference corpus's seven image sizes (SURVEY.md P17, W×H 1280×853,
+#: 640×762, 1280×854, 64×64, 64×64 noise, 4499×2999, 1280×641), as
+#: (rows, cols): 67,975,252 samples over the 28-case matrix.
+REFERENCE_SPECS: tuple[tuple[str, str, tuple[int, int]], ...] = (
+    ("img_001_gradient", "gradient", (853, 1280)),
+    ("img_002_checker", "checker", (762, 640)),
+    ("img_003_stripes", "stripes", (854, 1280)),
+    ("img_004_tiny", "gradient", (64, 64)),
+    ("img_005_noise", "noise", (64, 64)),
+    ("img_006_large_mix", "mix", (2999, 4499)),
+    ("img_007_steps", "steps", (641, 1280)),
+)
+
 
 def _render(kind: str, shape: tuple[int, int],
             rng: np.random.Generator) -> np.ndarray:
@@ -42,7 +55,7 @@ def _render(kind: str, shape: tuple[int, int],
     elif kind == "checker":
         img = ((r // 8 + c // 8) % 2) * 255.0
     elif kind == "stripes":
-        img = ((c // 4) % 2) * 255.0
+        img = ((c // 4) % 2) * 255.0 * np.ones((rows, 1))
     elif kind == "noise":
         img = rng.integers(0, 256, size=shape).astype(np.float64)
     elif kind == "steps":

@@ -6,19 +6,14 @@ same structured-log habit is kept and extended with:
 - :func:`trace` — context manager wrapping ``jax.profiler.trace`` so any
   region can be captured for TensorBoard/XProf (gated: profiling is a
   no-op if the profiler cannot start, e.g. on exotic backends);
-- :class:`StageTimer` — per-stage wall clock with achieved-vs-roofline
-  Msamples/s reporting in the same ``[OK] ...`` line format.
+- :class:`StageTimer` — per-stage wall clock with achieved Msamples/s
+  in the same ``[OK] ...`` line format.
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-
-#: HBM-bandwidth speed of light for the headline FIR (2 bytes/sample on
-#: a ~819 GB/s v5e chip) — see docs/architecture.md.
-DEFAULT_SOL_MSPS = 819e9 / 2.0 / 1e6
-
 
 @contextmanager
 def trace(log_dir: str, *, enabled: bool = True):
@@ -50,16 +45,13 @@ class StageTimer:
     Used as the status-line emitter of pipeline stages 2/3 (``stages.py``):
     carries arbitrary ``counts`` (generated/skipped/...), accumulates
     processed sample counts, and prints the reference-shaped structured
-    line extended with achieved Msamples/s and (when ``sol_msps`` is set)
-    the roofline fraction.  On exception a ``[FAIL]`` line is printed and
+    line extended with achieved Msamples/s.  On exception a ``[FAIL]`` line is printed and
     the exception propagates (the reference's fail-fast contract,
     ``pipeline_fir_1d.py:232-241``).
     """
 
-    def __init__(self, name: str, *, sol_msps: float | None = DEFAULT_SOL_MSPS,
-                 **counts: int):
+    def __init__(self, name: str, **counts: int):
         self.name = name
-        self.sol_msps = sol_msps
         self.samples = 0
         self.counts: dict = dict(counts)
         self._elapsed = 0.0
@@ -100,8 +92,6 @@ class StageTimer:
         parts += [f"{key}={value}" for key, value in self.counts.items()]
         parts += [f"samples={self.samples}", f"elapsed={self._elapsed:.3f}s",
                   f"msps={self.msps:.1f}"]
-        if self.sol_msps:
-            parts.append(f"sol_fraction={self.msps / self.sol_msps:.3f}")
         if error is not None:
             parts.append(f'error="{error}"')
         return " ".join(parts)
